@@ -1,19 +1,18 @@
-"""Sharded-throughput scaling benchmark (chips and hosts).
+"""Sharded-throughput scaling benchmark (cards and hosts).
 
 Measures steady-state per-buffer throughput of the sharded step
 (octproz_tpu.parallel.make_sharded_step) over increasing mesh sizes and
-reports scaling efficiency vs linear -- the harness for the BASELINE
-multi-chip targets (>85% linear scaling to 2 hosts).
+reports scaling efficiency vs linear.
 
 Modes:
 
 * default: 1-D chip sweep over all local devices (1, 2, 4, ... chips).
 * ``--hosts N``: simulated multi-host sweep in ONE process -- a
-  (host, bscan, ascan) mesh over local/virtual devices, exercising the DCN
+  (host, bscan, ascan) mesh over local/virtual devices, exercising the
   host axis (FPN psum across hosts) without a cluster.
 * ``--coordinator HOST:PORT --num-processes N --process-id I``: REAL
-  multi-process run (one invocation per host, e.g. one per TPU worker or
-  one per CPU test process).  Each process feeds its local B-scan block
+  multi-process run (one invocation per host, or one per CPU test
+  process).  Each process feeds its local B-scan block
   (feed_from_local) and the reported rate is the global buffer rate.
   CPU example (2 hosts x 2 devices, run in two shells):
 
@@ -45,19 +44,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _measure(step, raw, curves, state, acq, n_iters, warmup):
-    # sync points are host FETCHES of a scalar: on remote backends
-    # block_until_ready can return without waiting for execution
-    # (docs/troubleshooting.md)
-    def sync(arr):
-        float(arr.ravel()[0])  # device-side index, scalar D2H fetch
+    import jax
 
     for _ in range(max(warmup, 1)):  # >=1: 'out' seeds the ready-barrier
         out, state = step(raw, curves, state)
-    sync(out)
+    jax.block_until_ready(out)
     t0 = time.perf_counter()
     for _ in range(n_iters):
         out, state = step(raw, curves, state)
-    sync(out)
+    jax.block_until_ready(out)
     dt = time.perf_counter() - t0
     rate = n_iters * acq.ascans_per_buffer / dt
     return rate, dt / n_iters
@@ -137,19 +132,16 @@ def run_distributed(args, acq, cfg):
     return rec
 
 
-def run_traffic_report(acq, cfg, compute_s_per_buffer: float,
-                       out_path: str) -> dict:
-    """Collective-traffic evidence for the scaling claim (VERDICT r3 #3).
+def run_traffic_report(acq, cfg, out_path: str) -> dict:
+    """Collective-traffic evidence for the sharded step.
 
-    Compiles the sharded step on virtual meshes, tallies the collective
-    payload bytes in the optimized HLO (octproz_tpu.parallel.traffic), and
-    combines them with the hardware-measured single-chip compute time into
-    an analytic 2-host efficiency prediction.  The partitioned program is
-    what GSPMD emits for our sharding annotations — the byte counts are a
-    property of the program, not of the backend executing it.
+    Compiles the sharded step on virtual meshes and tallies the collective
+    payload bytes in the optimized HLO (octproz_tpu.parallel.traffic).  The
+    partitioned program is what GSPMD emits for our sharding annotations —
+    the byte counts are a property of the program, not of the backend
+    executing it.  Time on real cards is measured by
+    ``chip_smoke.py --multi`` and the sweeps above.
     """
-    import dataclasses
-
     from octproz_tpu.parallel import make_mesh, make_simulated_multihost_mesh
     from octproz_tpu.parallel import traffic
 
@@ -159,7 +151,6 @@ def run_traffic_report(acq, cfg, compute_s_per_buffer: float,
                      "bscans": acq.bscans_per_buffer,
                      "config": "full benchmark chain (cubic k-lin, window, "
                                "dispersion, FPN once, log)"},
-        "compute_s_per_buffer": compute_s_per_buffer,
         "meshes": {},
     }
     meshes = {
@@ -171,44 +162,7 @@ def run_traffic_report(acq, cfg, compute_s_per_buffer: float,
         r = traffic.measure_collective_traffic(acq, cfg, build())
         report["meshes"][name] = {"by_op": r["by_op"],
                                   "total_bytes": r["total_bytes"]}
-    det_bytes = report["meshes"]["host2x4"]["total_bytes"]
     report["expected_fpn_psum_bytes"] = traffic.expected_fpn_psum_bytes(acq)
-
-    # Analytic 2-host efficiency: steady state moves ZERO cross-device
-    # bytes (measured above: the only collective is the FPN psum, and it
-    # sits under the determination lax.cond); the determination buffer
-    # pays det_bytes over the slowest link plus a latency floor.  DCN
-    # ~25 GB/s per host with ~100 us collective latency; ICI ~100 GB/s,
-    # ~10 us.  Latency is folded in as extra equivalent bytes.
-    models = {}
-    for link_name, gbps, lat_s in (("ici", 100.0, 10e-6),
-                                   ("dcn", 25.0, 100e-6)):
-        eff_bytes = det_bytes + gbps * 1e9 * lat_s
-        models[link_name] = {
-            "link_gbps": gbps, "latency_floor_s": lat_s,
-            "fpn_once": traffic.efficiency_model(
-                acq, cfg, compute_s_per_buffer=compute_s_per_buffer,
-                link_gbps=gbps, det_bytes=int(eff_bytes), fpn_once=True),
-            "fpn_continuous": traffic.efficiency_model(
-                acq, cfg, compute_s_per_buffer=compute_s_per_buffer,
-                link_gbps=gbps, det_bytes=int(eff_bytes), fpn_once=False),
-        }
-    report["efficiency_model"] = models
-    report["predicted_efficiency"] = {
-        "note": "MODEL-PREDICTED from measured collective bytes + an "
-                "analytic link model, NOT a wall-clock measurement "
-                "(multi-chip hardware is unavailable in this environment); "
-                "the measured companion is the 2-process gloo anchor "
-                "(--gloo-anchor, `measured_protocol_ratio`)",
-        "fpn_once_dcn": models["dcn"]["fpn_once"]["predicted_efficiency"],
-        "fpn_continuous_dcn":
-            models["dcn"]["fpn_continuous"]["predicted_efficiency"],
-    }
-    report["claim"] = (
-        "steady-state cross-device bytes = 0 (measured from the compiled "
-        "HLO); 2-host efficiency is bounded by the once-per-stream FPN "
-        "psum and PREDICTED >99% (FPN once) / >90% (FPN continuous over "
-        "DCN) by the analytic link model — see docs/scaling.md")
     with open(out_path, "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report))
@@ -216,17 +170,15 @@ def run_traffic_report(acq, cfg, compute_s_per_buffer: float,
 
 
 def run_gloo_anchor(args, acq, cfg, out_path: str) -> dict:
-    """MEASURED 2-process protocol anchor (VERDICT r4 weak #5).
+    """MEASURED 2-process protocol anchor.
 
     Runs the SAME 2-device global workload twice through the identical
     distributed machinery (run_distributed -> jax.distributed + gloo on
     CPU): (a) one process owning both devices, (b) two OS processes with
     one device each, coordinating over localhost.  The wall-clock ratio
     b/a is a measured lower bound on the distributed-protocol overhead.
-    CPU-bound and localhost-gloo, so it understates a real pod slice
-    (where compute per byte is far higher and collectives ride ICI) — a
-    floor, not the prediction; the predicted_efficiency field stays the
-    model's number and is labeled as such.
+    The workers run on the CPU (JAX_PLATFORMS=cpu), so they never open a
+    card that another process holds.
     """
     import socket
     import subprocess
@@ -260,7 +212,8 @@ def run_gloo_anchor(args, acq, cfg, out_path: str) -> dict:
                  "--num-processes", str(num_processes),
                  "--process-id", str(i),
                  "--cpu-devices", str(devices_per_proc)] + geo,
-                stdout=subprocess.PIPE, stderr=ef, text=True))
+                stdout=subprocess.PIPE, stderr=ef, text=True,
+                env=dict(os.environ, JAX_PLATFORMS="cpu")))
         try:
             outs = [p.communicate(timeout=600)[0] for p in procs]
         except subprocess.TimeoutExpired:
@@ -301,8 +254,7 @@ def run_gloo_anchor(args, acq, cfg, out_path: str) -> dict:
                 "global workload with vs without a real OS-process "
                 "boundary (jax.distributed + gloo over localhost, CPU "
                 "backend); a measured lower-bound anchor for the "
-                "protocol overhead the predicted_efficiency model "
-                "abstracts",
+                "protocol overhead",
     }
     with open(out_path, "w") as f:
         json.dump(report, f, indent=1)
@@ -324,9 +276,6 @@ def main():
     p.add_argument("--pairs", type=int, default=3,
                    help="adjacent measurement pairs for --gloo-anchor "
                         "(median-of-pairs ratio)")
-    p.add_argument("--compute-ms", type=float, default=1.463,
-                   help="hardware-measured single-chip ms/buffer for the "
-                        "traffic model (default: BENCH_r03 headline)")
     p.add_argument("--hosts", type=int, default=0,
                    help="simulated multi-host sweep: (host, bscan, ascan) "
                         "meshes with this many hosts")
@@ -354,7 +303,11 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
+    from octproz_tpu.cli import enable_compilation_cache
     from octproz_tpu.params import AcqParams, FpnMode, Interpolation, ProcConfig
+
+    if not args.coordinator:  # distributed workers configure jax first
+        enable_compilation_cache()
 
     acq = AcqParams(samples_per_line=args.samples, ascans_per_bscan=args.ascans,
                     bscans_per_buffer=args.bscans, bit_depth=12)
@@ -364,7 +317,7 @@ def main():
                      fft_via_matmul=True)
 
     if args.traffic:
-        run_traffic_report(acq, cfg, args.compute_ms / 1e3, args.traffic)
+        run_traffic_report(acq, cfg, args.traffic)
         return
 
     if args.gloo_anchor:
@@ -372,17 +325,10 @@ def main():
         return
 
     if args.coordinator:
-        cfg_d = cfg if not (args.virtual or args.cpu_devices) else \
-            __import__("dataclasses").replace(cfg, fold_backend="xla")
-        run_distributed(args, acq, cfg_d)
+        run_distributed(args, acq, cfg)
         return
 
-    import dataclasses
-
     import jax
-
-    if jax.default_backend() != "tpu":
-        cfg = dataclasses.replace(cfg, fold_backend="xla")
 
     from octproz_tpu.parallel import make_mesh, make_simulated_multihost_mesh
 

@@ -1,4 +1,4 @@
-// octnative: native host-runtime components of the TPU FD-OCT framework.
+// octnative: native host-runtime components of the FD-OCT framework.
 //
 // Capability-equivalent of the reference's native data-path pieces:
 //  * aligned acquisition ring buffer with ready flags

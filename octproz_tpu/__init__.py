@@ -1,9 +1,9 @@
-"""octproz_tpu -- a TPU-native FD-OCT processing framework.
+"""octproz_tpu -- an FD-OCT processing framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-application OCTproZ (C++/CUDA/Qt, see /root/reference and SURVEY.md), but an
-idiomatic TPU architecture: functional jitted pipeline, MXU-matmul
-k-linearization, batched XLA FFT, shard_map sharding over device meshes.
+application OCTproZ (C++/CUDA/Qt, see SURVEY.md), but an idiomatic JAX
+architecture: functional jitted pipeline, matmul k-linearization folded with
+the inverse DFT into one GEMM, shard_map sharding over device meshes.
 """
 
 from .params import (  # noqa: F401

@@ -255,18 +255,14 @@ def consumed_fields(cfg: "ProcConfig") -> Tuple[str, ...]:
     """Names of the Curves fields the jitted step for ``cfg`` actually reads.
 
     Mirrors the branch structure of pipeline.process_buffer.  Used to keep
-    everything else OFF the device: each host->device upload is latency and,
-    on tunneled backends, a failure opportunity, so only the operators this
-    configuration consumes are shipped (the reference analogously uploads
-    only the LUTs the active kernel dispatch needs, cuda_code.cu:1432-1445).
+    everything else OFF the device: each host->device upload costs latency,
+    so only the operators this configuration consumes are shipped (the
+    reference analogously uploads only the LUTs the active kernel dispatch
+    needs, cuda_code.cu:1432-1445).
     """
     used = []
     if cfg.fft_via_matmul:
         used += ["depth_op_re", "depth_op_im"]
-    elif cfg.use_pallas_prep:
-        used.append("prep_operator")
-        if cfg.dispersion:
-            used.append("phase")
     else:
         if cfg.resampling:
             used.append("resample_matrix" if cfg.resample_via_matmul
@@ -312,12 +308,12 @@ def make_curves(
         return jnp.asarray(np_arr) if name in used else np_arr
 
     n = acq.samples_per_line
-    rc = rm = win = phase = sin_curve = post_bg = prep_op = None
+    rc = rm = win = phase = sin_curve = post_bg = None
     rm_np = win_np = None
     if cfg.resampling:
         rc_np = resample_curve(acq, *resample_coeffs, custom=custom_resample_curve)
         rc = place("resample_curve", rc_np)
-        if cfg.resample_via_matmul or cfg.use_pallas_prep or cfg.fft_via_matmul:
+        if cfg.resample_via_matmul or cfg.fft_via_matmul:
             # the O(n^2) matrix build only pays off where a consumer folds
             # it (gather-path live re-tuning stays cheap)
             rm_np = build_resample_matrix(rc_np, cfg.interpolation)
@@ -325,15 +321,11 @@ def make_curves(
     if cfg.windowing:
         win_np = window_curve(window_type, n, window_center, window_fill_factor)
         win = place("window", win_np)
-    if cfg.use_pallas_prep:
-        from .pallas.fused_prep import build_prep_operator
-        prep_op = place("prep_operator",
-                        build_prep_operator(acq, cfg, rm_np, win_np))
     dop_re = dop_im = None
     phase_np = (np.asarray(dispersion_phase(acq, *dispersion_coeffs))
                 if cfg.dispersion else None)
     if cfg.fft_via_matmul:
-        from .pallas.fused_prep import build_depth_operator
+        from .ops.fold import build_depth_operator
         re_np, im_np = build_depth_operator(acq, cfg, rm_np, win_np, phase_np)
         dop_re, dop_im = place("depth_op_re", re_np), place("depth_op_im", im_np)
     if cfg.dispersion:
@@ -351,7 +343,6 @@ def make_curves(
     return Curves(
         resample_curve=rc,
         resample_matrix=rm,
-        prep_operator=prep_op,
         depth_op_re=dop_re,
         depth_op_im=dop_im,
         window=win,

@@ -3,7 +3,7 @@
 Capability-equivalent of the reference's Camera extension
 (/root/reference/docs/docs/plugins.md:22-24: "displays live video ... of
 the sample under examination" with snapshot saving), re-designed for a
-headless TPU host: instead of a Qt widget wrapping a local webcam device,
+headless processing host: instead of a Qt widget wrapping a local webcam device,
 a :class:`FrameSource` supplies frames (a directory of images cycled at a
 fixed rate, a user callable bridging any capture SDK, or a hardware
 bridge) and the frames are served into the live HTTP viewer

@@ -6,7 +6,7 @@ acquisitionbuffer.h:53-58) and of the Virtual OCT System plugin -- the
 file-replay acquisition system that is the reference's de-facto test harness
 (octproz_plugins/octproz-virtual-oct-system/src/virtualoctsystem.cpp:163-353).
 
-Design differences (TPU-first):
+Design differences:
 * The reference hands out raw pointers into a spin-wait double buffer; here a
   source is an iterator of numpy buffers shaped (bscans, ascans, samples),
   and the runtime overlaps host IO with device compute via a prefetch queue

@@ -3,7 +3,7 @@
 The reference's data path below Qt is native C++ (aligned double buffer
 octproz_devkit/src/acquisitionbuffer.cpp, streaming file reads
 virtualoctsystem.cpp:226-291); this module provides the same components for
-the TPU build's host loop.  The shared library is compiled on demand with
+this framework's host loop.  The shared library is compiled on demand with
 g++ (cached next to the source); every entry point has a numpy fallback so
 the framework works without a toolchain.
 """

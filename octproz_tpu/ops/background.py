@@ -6,7 +6,7 @@ A-scan of length n, subtract the mean over the window
 ``[max(0, i-W+1), min(n-1, i+W)]`` (W = rolling_average_window), i.e. an
 asymmetric window of up to ``2W`` samples clamped to the A-scan.
 
-TPU formulation: the window bounds depend only on the intra-A-scan index, so
+Formulation: the window bounds depend only on the intra-A-scan index, so
 we compute an exclusive prefix sum along the spectral axis and take two static
 gathers -- one fused elementwise pass instead of the reference's
 shared-memory tile.

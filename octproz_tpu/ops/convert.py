@@ -16,7 +16,6 @@ implement (octalgorithmparameters.h:69, docs/docs/faq.md:3-5).
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -56,28 +55,14 @@ def unpack_uint12_device(packed: jnp.ndarray, n_samples: int) -> jnp.ndarray:
 
     Layout matches the host/native unpack (two samples per 3-byte group,
     native/octnative.cpp:154-165).  n_samples must be even (every real
-    buffer geometry is).  All shifts run in int32: TPU sub-word unsigned
-    shifts are the Mosaic trap the repo conventions ban, and int32 is
-    uniformly safe.
+    buffer geometry is).  Shifts run in int32.
 
-    TPU layout note: a ``(N, 3)``-shaped intermediate is catastrophic on
-    TPU — the (8, 128) tiling pads the 3-wide minor dimension to 128, a
-    42x memory blowup (measured: a 34 GB allocation for a 268 MB buffer).
-    When ``n_samples`` is a multiple of 256 the unpack instead works on
-    rows of 384 bytes (= 256 samples): the byte planes become
-    ``(rows, 128)`` slices (lane-aligned) and the sample interleave is a
-    static 256-wide gather.  The (N, 3) form remains as the fallback for
-    odd sizes (fine on CPU).
+    When ``n_samples`` is a multiple of 256 the unpack works on rows of
+    384 bytes (= 256 samples, :func:`unpack_uint12_rows`, which a mesh can
+    shard line by line); other even counts take the ``(N, 3)`` form.
     """
     if n_samples % 2:
         raise ValueError("device unpack needs an even sample count")
-    if n_samples % 256 and jax.default_backend() != "cpu":
-        # refuse the (N, 3) fallback on accelerators instead of silently
-        # OOMing mid-stream with a 42x allocation
-        raise ValueError(
-            f"packed-12 device unpack on this backend needs the sample "
-            f"count to be a multiple of 256 (got {n_samples}); the (N, 3) "
-            f"fallback shape is a ~42x tiling blowup on TPU")
     if n_samples % 256 == 0:
         return unpack_uint12_rows(packed).reshape(n_samples)
     b = packed.reshape(-1, 3).astype(jnp.int32)
@@ -97,9 +82,7 @@ def unpack_uint12_rows(packed: jnp.ndarray) -> jnp.ndarray:
     leading axes unpacks with zero cross-device communication — packing is
     line-local, which is what makes the packed-12 wire shardable on B-scan
     boundaries (the mesh streaming path, models/fdoct.put_packed_buffer).
-    Same lane-aligned (rows, 384)-block formulation and int32 shift
-    discipline as :func:`unpack_uint12_device` (whose %256 branch delegates
-    here)."""
+    :func:`unpack_uint12_device`'s %256 branch delegates here."""
     *lead, nbytes = packed.shape
     if nbytes % 384:
         raise ValueError(

@@ -6,7 +6,7 @@ octproz_project/octproz/src/cuda_code.cu:1140,1513-1515); the 1/N
 normalization is folded into the log/lin scaling stage instead
 (cuda_code.cu:713-714).
 
-TPU build: XLA's batched FFT.  ``norm="forward"`` gives the unnormalized
+XLA's batched FFT.  ``norm="forward"`` gives the unnormalized
 inverse transform matching cuFFT.  When the spectra are still real (no
 dispersion phasor), we use the RFFT identity
 

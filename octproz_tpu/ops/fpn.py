@@ -14,8 +14,8 @@ Numerics match the reference kernels
   positive-depth (first) half of every A-scan; the mirror half is about to
   be truncated anyway (cuda_code.cu:1526).
 
-TPU formulation: a reshape + two reductions + argmin-select -- all
-VPU-friendly, no atomics.  The per-depth statistics are also exposed as raw
+Formulation: a reshape + two reductions + argmin-select -- all
+elementwise-friendly, no atomics.  The per-depth statistics are also exposed as raw
 segment sums so the sharded pipeline can psum them across devices
 (see octproz_tpu.parallel.sharding).
 
@@ -40,7 +40,7 @@ def _banded_argmin(variance: jnp.ndarray, power_scale: jnp.ndarray) -> jnp.ndarr
     The reference picks the exact argmin (cuda_code.cu:548-560); under
     near-ties that choice flips on any numeric perturbation (different
     precision rung, different accumulation order), making end-to-end
-    fidelity chaotic (VERDICT r4 weak #3).  We band the minimum: every
+    fidelity chaotic.  We band the minimum: every
     segment whose variance is within ``FPN_TIE_EPS * power_scale`` of the
     minimum is a tie, and the LOWEST segment index wins.  ``power_scale``
     is the per-depth mean power E|z|^2 across segments — a positive,
@@ -114,8 +114,7 @@ def subtract_mean_line(z_half: jnp.ndarray, mean_line_half: jnp.ndarray) -> jnp.
 
 # ---------------------------------------------------------------------------
 # Planar (re, im) variants: identical numerics with no complex64 arrays.
-# Used by the fft_via_matmul path so the whole pipeline runs on backends
-# without complex support (and avoids interleaved-complex layouts on TPU).
+# Used by the fft_via_matmul path, which never builds complex64 arrays.
 # ---------------------------------------------------------------------------
 
 def segment_sums_planar(re: jnp.ndarray, im: jnp.ndarray,

@@ -1,1 +1,1 @@
-from .fused_prep import build_prep_operator, fused_prep  # noqa: F401
+"""Hand-written Pallas kernels (GPU, through Triton)."""

@@ -1,17 +1,17 @@
-"""Multi-host distributed layer: DCN host axis, per-host acquisition feeds.
+"""Multi-host distributed layer: host mesh axis, per-host acquisition feeds.
 
 The reference has NO distributed layer at all (SURVEY.md section 5
 "Distributed communication backend": single process, single GPU; its
 concurrency is 8 CUDA streams, cuda_code.cu:42,1396).  This module is the
-TPU-native scale-out the BASELINE requires as a first-class component:
+scale-out the BASELINE requires as a first-class component:
 
 * :func:`initialize` — ``jax.distributed`` wiring (coordinator + process
   rank), with a CPU convenience path (gloo collectives, N virtual local
   devices) used by the multi-process tests and by single-machine bring-up.
 * :func:`make_multihost_mesh` — a (host, bscan, ascan) mesh whose leading
-  axis is the process/DCN axis: row ``p`` holds exactly the devices of
-  process ``p``, so AXIS_BSCAN/AXIS_ASCAN collectives ride ICI and only the
-  host-axis reductions (the FPN psum) cross DCN.
+  axis is the process axis: row ``p`` holds exactly the devices of
+  process ``p``, so AXIS_BSCAN/AXIS_ASCAN collectives stay within a host
+  (NVLink) and only the host-axis reductions (the FPN psum) cross hosts.
 * :func:`local_bscan_range` / :func:`feed_from_local` — per-host data
   feeding: each host's acquisition source produces only its own contiguous
   block of B-scans and commits it with
@@ -54,9 +54,8 @@ def initialize(
 ) -> None:
     """Bring up ``jax.distributed`` for this process.
 
-    Call once per process before any other JAX use.  On TPU pods the three
-    arguments can usually all be inferred by JAX; pass them explicitly for
-    CPU clusters and tests.  ``platform="cpu"`` configures the CPU backend
+    Call once per process before any other JAX use, with all three
+    arguments: nothing in a plain GPU or CPU cluster tells JAX of them.  ``platform="cpu"`` configures the CPU backend
     for multi-process use: ``local_device_count`` virtual devices per process
     and gloo cross-process collectives.
     """
@@ -82,8 +81,8 @@ def make_multihost_mesh(
     (sorted by process index, then device id), so:
 
     * each host feeds/fetches only its own mesh row (local shards),
-    * AXIS_BSCAN / AXIS_ASCAN collectives stay on ICI within a host,
-    * only host-axis reductions (FPN statistics psum) cross DCN.
+    * AXIS_BSCAN / AXIS_ASCAN collectives stay within a host (NVLink),
+    * only host-axis reductions (FPN statistics psum) cross hosts.
 
     ``n_ascan_shards`` splits each host's devices between the B-scan and
     A-scan axes (devices_per_host must be divisible by it).
@@ -212,7 +211,7 @@ def local_block(arr: jax.Array) -> Tuple[np.ndarray, int]:
     array into one contiguous host block.
 
     Returns (block, dim0_start): the per-host D2H fetch — each host fetches
-    only its own output B-scans, nothing crosses DCN.
+    only its own output B-scans, nothing crosses hosts.
     """
     shards = sorted(arr.addressable_shards,
                     key=lambda s: tuple(sl.start or 0 for sl in s.index))

@@ -1,12 +1,12 @@
-"""Sharded per-buffer processing over a TPU device mesh.
+"""Sharded per-buffer processing over a device mesh.
 
 The reference application is strictly single-GPU (SURVEY.md section 2.3); its
 intra-device concurrency is 8 rotating CUDA streams + a batched cuFFT plan
-(octproz_project/octproz/src/cuda_code.cu:42,1140,1396).  The TPU-native
+(octproz_project/octproz/src/cuda_code.cu:42,1140,1396).  This
 scale-out re-expresses the same workload over a ``jax.sharding.Mesh`` with up
 to three axes:
 
-* ``AXIS_HOST`` ("host parallelism", DCN): present on multi-host meshes built
+* ``AXIS_HOST`` ("host parallelism", across the inter-host network): present on multi-host meshes built
   by :mod:`octproz_tpu.parallel.multihost` — each host (process) feeds its
   own contiguous block of B-scans from its local acquisition stream and owns
   the devices of one mesh row.  Combined with AXIS_BSCAN into the leading
@@ -27,9 +27,9 @@ Cross-device communication (the part the reference has no equivalent of):
 * **Fixed-pattern-noise statistics** (cuda_code.cu:523-565) reduce over the
   first ``bscans_for_noise`` B-scans, which span shards on all axes.  Each
   shard computes per-segment complex sums and power sums for *its* lines via
-  a one-hot segment-membership matmul (an MXU op), and the partial sums are
-  combined with an explicit ``lax.psum`` over every mesh axis inside
-  ``shard_map`` — ICI within a host row, DCN across hosts.  The
+  a one-hot segment-membership matmul, and the partial sums are combined
+  with an explicit ``lax.psum`` over every mesh axis inside ``shard_map`` —
+  NVLink within a host row, the inter-host network across hosts.  The
   minimum-variance selection then runs replicated.
 * **Geometric postprocessing** (B-scan flip, sinusoidal correction, post
   background) runs *outside* ``shard_map`` on the GSPMD-partitioned global
@@ -41,11 +41,11 @@ Cross-device communication (the part the reference has no equivalent of):
   mirror collective-permute — static per configuration, tallied per config
   by ``parallel.traffic``.
 
-Steady-state hot path: when the config allows it (``fused_scale``, Pallas
-fold, FPN off/once) the shard body runs the SAME single-pass
-``fused_depth_scale`` kernel as the single-chip pipeline — decode + folded
-GEMM + FPN subtraction + dynamic-range scaling in one VMEM pass — so the
-sharded path has the single-chip HBM traffic profile.  The
+Steady-state hot path: when the config allows it (fold path, FPN off/once)
+the shard body runs the SAME ``fused_depth_scale`` step as the single-card
+pipeline — decode + folded GEMM + FPN subtraction + dynamic-range scaling in
+one kernel on a GPU — so the sharded path has the single-card memory
+traffic profile.  The
 FPN-determination buffer takes the unfused branch (with the psum) via
 ``lax.cond`` on the replicated ``determined`` flag; all devices take the
 same branch, so the collective stays uniform across the mesh.
@@ -87,7 +87,7 @@ def make_mesh(
 
     Defaults to all local devices on the B-scan axis — the production layout
     for volume streaming (one buffer's B-scan blocks spread over the slice).
-    Multi-host meshes (leading host axis over DCN) are built by
+    Multi-host meshes (leading host axis across hosts) are built by
     :func:`octproz_tpu.parallel.multihost.make_multihost_mesh`.
     """
     devices = list(devices if devices is not None else jax.devices())
@@ -134,14 +134,13 @@ def _sharded_fpn_mean_line(z_re_local: jnp.ndarray, z_im_local: jnp.ndarray,
     """Minimum-variance mean line from psum-combined per-shard statistics.
 
     z_re/im_local: float32 (B_loc, A_loc, depth) — this shard's block
-    (planar re/im; no complex arrays so the path runs on backends without
-    complex support).  Numerics match getMinimumVarianceMean
+    (planar re/im, no complex arrays).  Numerics match getMinimumVarianceMean
     (cuda_code.cu:523-565): the first ``n_noise = bscans_for_noise *
     ascans_per_bscan`` *global* lines are split into FPN_SEGMENTS segments of
     ``n_noise // FPN_SEGMENTS`` consecutive lines; per depth index the mean
     of the minimum-variance segment wins.  Returns (mean_re, mean_im).
 
-    The psum spans every mesh axis in ``axes`` — ICI within a host, DCN
+    The psum spans every mesh axis in ``axes`` — NVLink within a host, the network
     across hosts on multi-host meshes.
     """
     segs = FPN_SEGMENTS
@@ -174,9 +173,13 @@ def _sharded_fpn_mean_line(z_re_local: jnp.ndarray, z_im_local: jnp.ndarray,
 
     lre = z_re_local.reshape(-1, depth)                       # (L_loc, depth)
     lim = z_im_local.reshape(-1, depth)
-    sum_re = onehot @ lre
-    sum_im = onehot @ lim
-    sum_sq = onehot @ (lre ** 2 + lim ** 2)                   # (segs, depth)
+    # HIGHEST: the statistics must be float32 sums like the single-device
+    # reduction; at DEFAULT precision a GPU runs this matmul in TF32, whose
+    # 10-bit mantissa shifts the mean line by ~1e-3 relative
+    dot = functools.partial(jnp.matmul, precision=lax.Precision.HIGHEST)
+    sum_re = dot(onehot, lre)
+    sum_im = dot(onehot, lim)
+    sum_sq = dot(onehot, lre ** 2 + lim ** 2)                 # (segs, depth)
 
     sum_re, sum_im, sum_sq = lax.psum((sum_re, sum_im, sum_sq), axes)
 
@@ -194,7 +197,7 @@ def _core_local(raw_local: jnp.ndarray, curves: Curves, fpn_state: FpnState,
     """Per-shard slice of the pipeline: decode .. log scaling (shard_map body).
 
     Mirrors pipeline.process_buffer's structure: the steady-state path is the
-    single-pass fused kernel (GEMM + FPN subtraction + scaling in VMEM) when
+    fold step (GEMM + FPN subtraction + scaling, pallas/depth_scale.py) when
     the config allows it; FPN determination runs the unfused branch with the
     psum-combined statistics.  The ``lax.cond`` predicate (``determined``) is
     replicated across the mesh, so every device takes the same branch and the
@@ -215,9 +218,9 @@ def _core_local(raw_local: jnp.ndarray, curves: Curves, fpn_state: FpnState,
 
     def unfused(state):
         if cfg.fft_via_matmul:
-            from ..pallas.fused_prep import fused_depth_transform
-            z_re, z_im = fused_depth_transform(raw_local, curves.depth_op_re,
-                                               curves.depth_op_im, acq, cfg)
+            from ..ops.fold import depth_transform
+            z_re, z_im = depth_transform(raw_local, curves.depth_op_re,
+                                         curves.depth_op_im, acq, cfg)
         else:
             spectra = _pipeline.prep_spectra(raw_local, curves, acq, cfg)
             z_half = _pipeline.transform_to_depth(spectra, half)
@@ -244,13 +247,12 @@ def _core_local(raw_local: jnp.ndarray, curves: Curves, fpn_state: FpnState,
             mag = mag.astype(jnp.bfloat16)
         return mag, state
 
-    fusable = (cfg.fft_via_matmul and cfg.fused_scale
-               and cfg.fold_backend == "pallas"
+    fusable = (cfg.fft_via_matmul
                and cfg.fpn_mode in (FpnMode.OFF, FpnMode.ONCE))
     if not fusable:
         return unfused(fpn_state)
 
-    from ..pallas.fused_prep import fused_depth_scale
+    from ..pallas.depth_scale import fused_depth_scale
 
     def fused(state):
         # OFF ignores any carried state — subtract zeros (see pipeline.py)

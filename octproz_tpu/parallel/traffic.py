@@ -1,7 +1,7 @@
 """Collective-traffic accounting for the sharded step.
 
-The scaling claim of this framework (BASELINE.md: >85 % efficiency to two
-hosts) rests on the steady state moving ~zero bytes between devices: every
+Scaling over devices rests on the steady state moving ~zero bytes between
+devices: every
 per-A-scan stage is embarrassingly parallel along the B-scan/A-scan mesh
 axes, the only cross-device interactions being the fixed-pattern-noise
 statistics psum (reference reduction spans shards, cuda_code.cu:523-565)
@@ -11,8 +11,7 @@ this module PROVES it per configuration: it compiles the sharded step and
 tallies every collective in the optimized HLO with its payload bytes.
 
 Used by tests/test_traffic.py (regression-pins the byte counts) and
-benchmarks/scaling.py (emits measured traffic + the analytic efficiency
-model into SCALING_r*.json).
+benchmarks/scaling.py --traffic (emits the measured traffic).
 """
 
 from __future__ import annotations
@@ -185,37 +184,3 @@ def expected_fast_axis_bytes(acq: AcqParams, cfg: ProcConfig,
                                    cfg.bscan_flip):
         return 0
     return None
-
-
-def efficiency_model(acq: AcqParams, cfg: ProcConfig, *,
-                     compute_s_per_buffer: float,
-                     link_gbps: float,
-                     det_bytes: int,
-                     steady_bytes: int = 0,
-                     fpn_once: bool = True,
-                     buffers: int = 64) -> Dict:
-    """Predicted scaling efficiency T_1 / (n * T_n) with communication
-    serialized against compute (worst case: zero overlap).
-
-    ``det_bytes`` is the determination-buffer collective payload (the FPN
-    psum; measured by :func:`measure_collective_traffic`), paid once per
-    stream under FpnMode.ONCE or per buffer under CONTINUOUS.
-    ``steady_bytes`` is the per-buffer steady-state payload (zero on
-    B-scan-axis meshes, measured).  ``link_gbps`` is the slowest link the
-    collective rides (ICI within a slice, DCN across hosts).  A psum is
-    modeled as one payload crossing the link per hop of a ring
-    all-reduce; for the ~55 KB FPN payload latency dominates anyway, so
-    the model adds a per-collective latency floor of 10 us (ICI) scaled
-    into the bytes term implicitly via link_gbps — callers pass an
-    EFFECTIVE link rate if they want a different floor.
-    """
-    comm_det = det_bytes / (link_gbps * 1e9)
-    comm_steady = steady_bytes / (link_gbps * 1e9)
-    t_steady = compute_s_per_buffer + comm_steady
-    t_total = buffers * t_steady + (comm_det if fpn_once
-                                    else buffers * comm_det)
-    eff = (buffers * compute_s_per_buffer) / t_total
-    return {"compute_s_per_buffer": compute_s_per_buffer,
-            "comm_det_s": round(comm_det, 9),
-            "comm_steady_s": round(comm_steady, 9),
-            "predicted_efficiency": round(eff, 6)}

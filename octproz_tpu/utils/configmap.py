@@ -8,8 +8,9 @@ groups using the macro key names of
 octproz_project/octproz/src/sidebar.h:44-96, persisted by
 SettingsFileManager (src/settingsfilemanager.h:100-125) and restored at
 startup (src/octprozapp.cpp:526-583).  The same key names are used here so
-a reference user finds their parameters where they expect them; TPU-build
-knobs without a reference equivalent live in their own "tpu" group.
+a reference user finds their parameters where they expect them; build
+knobs without a reference equivalent live in their own group, whose
+historical name "tpu" is kept so existing settings files load.
 
 Two directions:
 
@@ -36,7 +37,7 @@ from .settings import SettingsManager
 # STREAM "streaming")
 ACQ = "acquisition"
 PROC = "processing"
-TPU = "tpu"
+BUILD = "tpu"  # historical group name, kept for settings-file compatibility
 STREAM = "streaming"
 REC = "record"
 
@@ -87,20 +88,16 @@ _PROC_TABLE = [
      float),
 ]
 
-# TPU-build knobs (ProcConfig fields with no reference counterpart)
-_TPU_TABLE = [
+# Build knobs (ProcConfig fields with no reference counterpart).  The group
+# keeps its historical name "[tpu]" so existing settings files load; keys
+# of removed knobs in old files are ignored like any unknown key.
+_BUILD_TABLE = [
     ("resample_via_matmul", "resample_via_matmul", _parse_bool),
     ("compute_dtype", "compute_dtype", str),
     ("matmul_precision", "matmul_precision", str),
     ("output_dtype", "output_dtype", str),
-    ("use_pallas_prep", "use_pallas_prep", _parse_bool),
     ("fft_via_matmul", "fft_via_matmul", _parse_bool),
     ("fold_backend", "fold_backend", str),
-    ("fused_scale", "fused_scale", _parse_bool),
-    ("fold_concat", "fold_concat", _parse_bool),
-    ("fold_k_split", "fold_k_split", int),
-    ("fast_log", "fast_log", _parse_bool),
-    ("pallas_tile", "pallas_tile", int),
 ]
 
 _STREAM_TABLE = [
@@ -170,7 +167,7 @@ def from_settings(sm: SettingsManager) -> SettingsBundle:
     _parse_table(sm, ACQ, _ACQ_TABLE, b.acq_kwargs)
     _parse_table(sm, ACQ, _SOURCE_TABLE, b.source_kwargs)
     _parse_table(sm, PROC, _PROC_TABLE, b.cfg_kwargs)
-    _parse_table(sm, TPU, _TPU_TABLE, b.cfg_kwargs)
+    _parse_table(sm, BUILD, _BUILD_TABLE, b.cfg_kwargs)
     _parse_table(sm, STREAM, _STREAM_TABLE, b.streaming)
     _parse_table(sm, REC, _REC_TABLE, b.recording)
 
@@ -281,8 +278,8 @@ def to_settings(
             fmt(cfg.fpn_mode == FpnMode.CONTINUOUS)
         proc["fixed_pattern_removal_mode"] = cfg.fpn_mode.value
         sm.update_group(PROC, proc)
-        sm.update_group(TPU, {k: fmt(getattr(cfg, f))
-                              for k, f, _ in _TPU_TABLE})
+        sm.update_group(BUILD, {k: fmt(getattr(cfg, f))
+                              for k, f, _ in _BUILD_TABLE})
     if curve_kwargs:
         proc = {}
         for field, keys in (("resample_coeffs",

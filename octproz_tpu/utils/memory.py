@@ -46,11 +46,12 @@ def estimate_footprint(acq: AcqParams, cfg: ProcConfig,
     if cfg.fft_via_matmul:
         # folded-operator GEMM: planar (n, half) re/im operators
         comp["operators"] = 2 * n * half * f
-        fused = (cfg.fused_scale and cfg.fold_backend == "pallas"
-                 and cfg.fpn_mode in (FpnMode.OFF, FpnMode.ONCE))
-        if not fused or cfg.fpn_mode != FpnMode.OFF:
-            # unfused tail (or the FPN-determination branch) materializes the
-            # planar (re, im) depth volumes
+        from ..pallas.depth_scale import implementation
+
+        if (cfg.fpn_mode != FpnMode.OFF
+                or implementation("gpu", cfg, acq.bit_depth) != "kernel"):
+            # the plain fold form, the FPN-determination branch and
+            # CONTINUOUS FPN materialize the planar (re, im) depth volumes
             comp["planar_depth"] = 2 * lines * half * f
     else:
         ops = 0

@@ -20,7 +20,7 @@ quantization noise of the acquisition itself — unambiguously "within the
 reference SNR bound".
 
 Usage:
-  python scripts/fullgeom_fidelity.py              # full geometry -> FIDELITY_r04.json
+  python scripts/fullgeom_fidelity.py --out F.json # full geometry -> F.json
   python scripts/fullgeom_fidelity.py --small      # quick small-geometry run
 
 tests/test_fidelity.py runs the same functions at small geometry as the
@@ -108,7 +108,7 @@ def derive_snr_bound(system, raw, analog, cfg, curves):
 
 def rung_psnrs(system, raw, ref_display, cfg, curves, rungs=None):
     """PSNR of each precision rung's pipeline output vs the float64-oracle
-    display reference, on this device's CPU/TPU backend."""
+    display reference, on this process's JAX backend."""
     import jax.numpy as jnp
 
     from octproz_tpu import pipeline
@@ -134,7 +134,7 @@ def rung_psnrs(system, raw, ref_display, cfg, curves, rungs=None):
 
 def fpn_on_rung_psnrs(system, raw, cfg, curves, rungs=None,
                       bscans_for_noise=4):
-    """END-TO-END fidelity WITH FPN ENABLED (VERDICT r5 #2): each rung's
+    """END-TO-END fidelity WITH FPN ENABLED: each rung's
     pipeline output vs the float64 oracle running the SAME FPN chain
     (tests/oracle.py min_variance_mean — the tie-banded selection matching
     ops/fpn.py, so the segment choice is identical across rungs instead of
@@ -214,9 +214,10 @@ def run(samples=1024, ascans=512, bscans=256, out_json=None,
         "platform": jax.devices()[0].platform,
         "platform_note": (
             "rung PSNRs measure the pipeline's numerics on THIS backend; "
-            "on the TPU MXU, float32 at default precision is bf16-grade "
-            "(CLAUDE.md), so only the high/highest split rungs carry their "
-            "CPU-grade fidelity to hardware"),
+            "on a GPU float32 at default precision runs TF32 GEMMs, so "
+            "only the high/highest split rungs carry their CPU-grade "
+            "fidelity to the card"),
+        "device_kind": jax.devices()[0].device_kind,
         "geometry": {"samples": samples, "ascans": ascans, "bscans": bscans},
         "anchor": "PhytoDeviceModel physics volume (io/phytooct.py), "
                   "unidirectional, sinusoidal scan, factory k-lin curve, "
@@ -302,8 +303,7 @@ def main():
     if args.small:
         run(256, 64, 8, out_json=args.out, save_pair_dir=args.save_pair)
     else:
-        run(out_json=args.out or os.path.join(REPO, "FIDELITY_r05.json"),
-            save_pair_dir=args.save_pair)
+        run(out_json=args.out, save_pair_dir=args.save_pair)
 
 
 if __name__ == "__main__":

@@ -7,13 +7,16 @@ fetches only its addressable output shards (local_block), and asserts parity
 against the single-device pipeline computed locally from the same seeded
 volume.  Exit code 0 == parity held on this host.
 
-Run via env: OCT_MH_PORT, OCT_MH_PROC, OCT_MH_NPROCS.
+Run via env: OCT_MH_PORT, OCT_MH_PROC, OCT_MH_NPROCS.  Runs on the CPU, so
+it never opens a card that another process holds.
 """
 
 import os
 import sys
 
-import numpy as np
+os.environ["JAX_PLATFORMS"] = "cpu"
+
+import numpy as np  # noqa: E402
 
 
 def main() -> None:
@@ -50,7 +53,7 @@ def main() -> None:
         fpn_mode=FpnMode.ONCE, bscans_for_noise=2,
         log_scaling=True,
         bscan_flip=True, sinusoidal_correction=True,
-        fft_via_matmul=True, fold_backend="xla",
+        fft_via_matmul=True,
     )
     curves = curves_mod.make_curves(
         acq, cfg,

@@ -2,9 +2,9 @@
 
 This is the unit/golden-test oracle: a direct, scalar-minded transcription of
 the *mathematics* of each reference CUDA kernel (file:line citations below
-point into /root/reference), written in NumPy float64 without any of the TPU
-reformulations (no matmul resampler, no RFFT shortcut).  The production code
-in octproz_tpu/ must agree with this to float32 tolerance.
+point into the reference sources), written in NumPy float64 without any of
+the GEMM reformulations (no matmul resampler, no RFFT shortcut).  The
+production code in octproz_tpu/ must agree with this to float32 tolerance.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Benchmark-harness smoke tests: the CPU entry points must stay runnable
-(the driver runs bench.py on hardware; these harnesses are the manual
-profiling surface, reference analog: the published performance protocol,
-performance/v180/performance_v180.md:55-60)."""
+(bench.py and chip_smoke.py measure on the card; these harnesses are the
+manual profiling surface, reference analog: the published performance
+protocol, performance/v180/performance_v180.md:55-60)."""
 
 import json
 import os
@@ -24,9 +24,8 @@ def test_latency_harness_cpu_small():
 
 
 def test_gloo_anchor_measured_ratio():
-    """The 2-process gloo anchor (VERDICT r4 weak #5): the same 2-device
-    workload with vs without an OS-process boundary yields a MEASURED
-    protocol ratio next to the model's predicted_efficiency."""
+    """The 2-process gloo anchor: the same 2-device workload with vs
+    without an OS-process boundary yields a MEASURED protocol ratio."""
     out_json = os.path.join(os.environ.get("TMPDIR", "/tmp"),
                             "gloo_anchor_test.json")
     out = subprocess.run(
@@ -45,26 +44,10 @@ def test_gloo_anchor_measured_ratio():
     assert "measured" in rec["note"]
 
 
-def test_e2e_soak_cycle_cpu_small():
-    """One soak cycle (scripts/e2e_soak.py --cycle): symmetric
-    upload/engine/upload windows in one process, ratio recorded
-    (VERDICT r4 weak #2 instrument)."""
-    out = subprocess.run(
-        [sys.executable, os.path.join(REPO, "scripts", "e2e_soak.py"),
-         "--cycle", "--small", "--window-s", "4", "--chunk", "4"],
-        capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-800:]
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
-    assert rec["engine_buffers"] > 0 and rec["upload_buffers"] > 0
-    assert rec["upload_before_mhz"] > 0 and rec["upload_after_mhz"] > 0
-    assert rec["ratio"] is not None and rec["ratio"] > 0
-
-
 def test_e2e_harness_engine_measured_cpu_small():
     """bench._run_e2e drives the real StreamingEngine (pipelined-H2D
     feeder + chunked dispatch) and reports engine-measured rates plus the
-    link-implied ceiling (VERDICT r3 #1: 'measured by the engine's own
-    ThroughputStats')."""
+    link-implied ceiling."""
     code = r"""
 import json, sys
 sys.path.insert(0, %r)
@@ -89,3 +72,43 @@ print(json.dumps(r))
     assert rec["e2e_mhz"] > 0 and rec["h2d_gbps"] > 0
     assert rec["h2d_ceiling_mhz"] > 0 and rec["ceiling_fraction"] > 0
     assert rec["measured_by"] == "StreamingEngine + ThroughputMeter"
+
+
+def test_bench_and_chip_smoke_refuse_without_a_gpu():
+    """No CPU fallback: without a GPU both exit non-zero and print no
+    result line."""
+    for script in ("bench.py", "chip_smoke.py"):
+        out = subprocess.run(
+            [sys.executable, os.path.join(REPO, script)],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert out.returncode != 0, script
+        assert '"ok"' not in out.stdout and '"value"' not in out.stdout
+
+
+def test_bench_parse_spec():
+    sys.path.insert(0, REPO)
+    import bench
+
+    cfg, chunk, strategy = bench.parse_spec("mega:16:bfloat16")
+    assert (chunk, strategy) == (16, "batch")
+    assert cfg.fold_backend == "pallas" and cfg.compute_dtype == "bfloat16"
+    cfg, chunk, strategy = bench.parse_spec("xla:1:float32:high:bfloat16")
+    assert (chunk, strategy, cfg.fold_backend) == (1, "scan", "xla")
+    assert cfg.matmul_precision == "high" and cfg.output_dtype == "bfloat16"
+
+
+def test_main_path_imports_no_plotting_libraries():
+    """The card's machine has no PIL or matplotlib: the main path (CLI,
+    model, runtime, kernel, chip_smoke's imports) must import them only
+    lazily, for PNG and plot export."""
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "import chip_smoke, bench\n"
+            "import octproz_tpu.cli, octproz_tpu.viz, octproz_tpu.runtime\n"
+            "import octproz_tpu.models.fdoct, octproz_tpu.pallas.depth_scale\n"
+            "print('PIL' in sys.modules, 'matplotlib' in sys.modules)" % REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert out.returncode == 0, out.stderr[-500:]
+    assert out.stdout.split() == ["False", "False"]

@@ -41,12 +41,13 @@ def test_process_writes_outputs(raw_file, tmp_path, capsys):
 
 
 def test_process_fused_matches_unfused(raw_file, tmp_path):
+    """The full fold (--fft-matmul) against the staged FFT chain."""
     path, n, asc, bsc = raw_file
     a, b = tmp_path / "a.raw", tmp_path / "b.raw"
     assert main(["process", path, *_geom(n, asc, bsc), "--fpn", "off",
                  "--output", str(a)]) == 0
     assert main(["process", path, *_geom(n, asc, bsc), "--fpn", "off",
-                 "--fused-prep", "--output", str(b)]) == 0
+                 "--fft-matmul", "--output", str(b)]) == 0
     np.testing.assert_allclose(np.fromfile(a, np.float32),
                                np.fromfile(b, np.float32), atol=5e-2)
 
@@ -282,3 +283,42 @@ def test_replay_packed12_wire_matches_uint16(tmp_path, capsys, small_raw_file):
     with pytest.raises(SystemExit, match="wire-format packed12"):
         main(["replay", str(packed_path), "--packed-12bit", "--keep-packed"]
              + base)
+
+
+def _config_updates(monkeypatch):
+    """Record jax.config.update calls instead of applying them."""
+    import jax
+
+    seen = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda key, value: seen.append((key, value)))
+    return seen
+
+
+def test_compile_cache_uses_jax_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it and the CLI sets no
+    directory of its own."""
+    from octproz_tpu import cli
+
+    seen = _config_updates(monkeypatch)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert cli.enable_compilation_cache() == str(tmp_path)
+    assert [v for k, v in seen if k == "jax_compilation_cache_dir"] == []
+
+
+def test_compile_cache_defaults_inside_checkout(monkeypatch):
+    """Without the variable the cache is a fixed directory in the
+    checkout (listed in .gitignore), not a home, temp or per-process
+    path."""
+    import os
+
+    from octproz_tpu import cli
+
+    seen = _config_updates(monkeypatch)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = os.path.join(repo, ".jax_cache")
+    assert cli.enable_compilation_cache() == want
+    assert [v for k, v in seen if k == "jax_compilation_cache_dir"] == [want]
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

@@ -64,11 +64,11 @@ PROBES = [(0, 10, 102), (2, 5, 105), (2, 11, 111), (0, 25, 114),
           (3, 14, 8), (0, 29, 68), (1, 14, 37), (0, 8, 35)]
 
 # Re-frozen 2026-08-21 after the FPN tie-banded argmin change
-# (ops/fpn.py:_banded_argmin, VERDICT r4 weak #3): the golden input has
+# (ops/fpn.py:_banded_argmin): the golden input has
 # near-tied segment variances by construction, so the stabilized selection
 # legitimately picks different (lowest-index) tied segments.
 GOLDEN = {
-    # fold=True: the planar full-fold GEMM (the TPU operating point)
+    # fold=True: the planar full-fold GEMM (the exported defaults' path)
     True: dict(mean=-0.095318, std=0.328408,
                vals=[-0.355045, -0.255469, -0.441004, -0.268356,
                      0.682220, -0.237136, 0.103938, -0.075919],

@@ -95,8 +95,8 @@ def test_attach_chains_engine_callbacks():
 def test_volume_raycast_pinned_to_cpu_device(monkeypatch):
     """The live volume raycast must pass an explicit CPU jax device to
     render_volume: the serving path may never dispatch onto the session
-    accelerator (VERDICT r2 weak #4; glwindow3d.cpp:316-323 — display never
-    stalls processing)."""
+    accelerator (glwindow3d.cpp:316-323 — display never stalls
+    processing)."""
     import jax
 
     from octproz_tpu.viz import render as render_mod
@@ -152,8 +152,8 @@ def test_page_script_structure():
 
 def test_interactive_render_control():
     """POST /render drives the live raycast: all 7 modes reachable with
-    viewpoint/threshold/gamma/step/lut control (VERDICT r4 missing #3:
-    trackball + per-frame mode uniforms, glwindow3d.cpp:266-272,300-360,
+    viewpoint/threshold/gamma/step/lut control (trackball + per-frame
+    mode uniforms, glwindow3d.cpp:266-272,300-360,
     controlpanel.h:67-84).  Each accepted POST re-renders immediately and
     the pane images differ across viewpoints."""
 
@@ -241,7 +241,7 @@ def _engine_with_live(tmp_path, **live_kw):
 
 def test_control_panel_sidebar_parity_round_trips(tmp_path):
     """Every sidebar-parity control reachable from the web UI round-trips
-    through POST /control (VERDICT r3 #8): window type/center/fill,
+    through POST /control: window type/center/fill,
     interpolation, FPN mode, streaming skip, recording start/stop,
     extension toggles."""
     eng, live = _engine_with_live(tmp_path)
@@ -292,7 +292,7 @@ def test_control_panel_sidebar_parity_round_trips(tmp_path):
 
 def test_extension_output_pane(tmp_path):
     """Active extensions' latest results are served at /extension.json in
-    the generic get_output() shapes (VERDICT r4 missing #4: the statistics
+    the generic get_output() shapes (the statistics
     histogram and peak list are now CONSUMERS of the same protocol every
     extension gets)."""
     eng, live = _engine_with_live(tmp_path)
@@ -320,7 +320,7 @@ def test_extension_output_pane(tmp_path):
 
 def test_third_party_extension_pane_zero_viewer_edits(tmp_path):
     """A brand-new extension implementing get_output() gets a hosted pane
-    with NO viewer edits (VERDICT r4 missing #4 'done' criterion)."""
+    with NO viewer edits."""
     from octproz_tpu.plugins import Extension
 
     class FreshExtension(Extension):
@@ -443,7 +443,7 @@ def test_extension_output_serializes_numpy(tmp_path):
 
 def test_display_manipulation_and_data_cursor():
     """POST /display (frame selection, avg/MIP, physical scale) and the
-    /pixel data-cursor endpoint (VERDICT r3 #9: GLWindow2D interactivity
+    /pixel data-cursor endpoint (GLWindow2D interactivity
     analog; zoom/pan/rotate/markers are client-side canvas transforms over
     these server surfaces)."""
     live = LiveView(port=0, throttle_s=0.0)

@@ -24,12 +24,16 @@ def test_estimate_counts_the_big_residents():
 
 
 def test_fused_off_path_has_no_planar_volumes():
+    """The depth/scale kernel with FPN off never stores the planar (re, im)
+    volumes; the plain form (and the FPN-determination branch) does."""
     import dataclasses
     fused_off = dataclasses.replace(CFG, fpn_mode=FpnMode.OFF,
-                                    fold_backend="pallas", fused_scale=True)
-    unfused = dataclasses.replace(CFG, fused_scale=False)
+                                    compute_dtype="bfloat16")
     assert "planar_depth" not in estimate_footprint(ACQ, fused_off)
-    assert estimate_footprint(ACQ, unfused)["planar_depth"] > 0
+    for plain in (dataclasses.replace(fused_off, fold_backend="xla"),
+                  dataclasses.replace(fused_off, compute_dtype="float32"),
+                  dataclasses.replace(fused_off, fpn_mode=FpnMode.ONCE)):
+        assert estimate_footprint(ACQ, plain)["planar_depth"] > 0
 
 
 def test_preflight_raises_with_breakdown():

@@ -79,15 +79,15 @@ def test_simulated_host_axis_parity(rng, mesh_shape):
                                rtol=2e-4, atol=2e-4)
 
 
-def test_fused_scale_inside_sharded_step(rng):
-    """The single-pass fused kernel runs INSIDE shard_map (steady state) and
-    matches the single-device fused pipeline across the FPN determination
+def test_fused_scale_inside_sharded_step(rng, kernel_interpret):
+    """The depth/scale kernel runs INSIDE shard_map (steady state) and
+    matches the single-device pipeline across the FPN determination
     boundary (lax.cond with the psum in the unfused branch)."""
     cfg = ProcConfig(resampling=True, interpolation=Interpolation.CUBIC,
                      windowing=True, dispersion=True,
                      fpn_mode=FpnMode.ONCE, bscans_for_noise=2,
                      log_scaling=True, fft_via_matmul=True,
-                     fold_backend="pallas", fused_scale=True)
+                     matmul_precision="high")
     curves = _curves(cfg)
     mesh = make_simulated_multihost_mesh(2, 2, 2)
     step = make_sharded_step(ACQ, cfg, mesh)
@@ -95,7 +95,7 @@ def test_fused_scale_inside_sharded_step(rng):
 
     state_s = pipeline.initial_fpn_state(ACQ)
     state_r = pipeline.initial_fpn_state(ACQ)
-    for _ in range(3):  # buffer 0: determination (unfused); 1-2: fused kernel
+    for _ in range(3):  # buffer 0: determination (unfused); 1-2: kernel
         raw = jnp.asarray(_raw(rng))
         got, state_s = step(raw, curves, state_s)
         ref, state_r = ref_step(raw, curves, state_r)

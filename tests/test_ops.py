@@ -187,7 +187,7 @@ class TestFPN:
         np.testing.assert_allclose(got, want, rtol=1e-6)
 
     def test_selection_invariant_under_perturbation(self, rng):
-        """The tie-banded argmin (fpn._banded_argmin, VERDICT r4 weak #3)
+        """The tie-banded argmin (fpn._banded_argmin)
         must pick the SAME segment under numeric perturbations of the size
         the precision rungs introduce (~1e-5 relative, the measured "high"
         split operand error) -- including on near-tied variances, where the
@@ -335,3 +335,32 @@ class TestDeviceUnpack:
 
         with pytest.raises(ValueError, match="even"):
             convert.unpack_uint12_device(jnp.zeros(3, jnp.uint8), 1)
+
+    @pytest.mark.parametrize("n_samples", [1664 * 3, 1664 * 5 + 2])
+    def test_device_unpack_any_even_count(self, rng, n_samples):
+        """Counts that are not multiples of 256 take the (N, 3) form on
+        every backend (no accelerator refusal)."""
+        from octproz_tpu import native
+        from octproz_tpu.ops import convert
+
+        samples = rng.integers(0, 4096, n_samples).astype(np.uint16)
+        got = np.asarray(convert.unpack_uint12_device(
+            jnp.asarray(native.pack_uint12(samples)), n_samples))
+        np.testing.assert_array_equal(got, samples)
+
+    def test_put_packed_buffer_native_1664_geometry(self, rng):
+        """The dataset's native 1664-sample lines on the packed-12 wire
+        through FdOctModel.put_packed_buffer."""
+        from octproz_tpu import native
+        from octproz_tpu.models.fdoct import FdOctModel
+        from octproz_tpu.params import ProcConfig
+
+        acq = AcqParams(samples_per_line=1664, ascans_per_bscan=3,
+                        bscans_per_buffer=2, bit_depth=12)
+        model = FdOctModel(acq, ProcConfig(fft_via_matmul=True),
+                           resample_coeffs=(0.0, 1663.0, 0.0, 0.0))
+        raw = rng.integers(0, 4096, acq.buffer_shape).astype(np.uint16)
+        got = model.put_packed_buffer(native.pack_uint12(raw.reshape(-1)))
+        np.testing.assert_array_equal(np.asarray(got), raw)
+        out = model.process_buffer(got)
+        assert out.shape == acq.processed_buffer_shape

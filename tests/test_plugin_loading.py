@@ -1,4 +1,4 @@
-"""Runtime plugin discovery/loading (VERDICT r4 missing #2).
+"""Runtime plugin discovery/loading.
 
 The reference loads acquisition systems and extensions from shared
 libraries at startup (octprozapp.cpp:99-174, QPluginLoader); here third

@@ -1,5 +1,5 @@
-"""Settings-file round-trip: every acquisition / processing / tpu /
-streaming / recording key survives config -> INI -> config identically
+"""Settings-file round-trip: every acquisition / processing / [tpu] build
+knob / streaming / recording key survives config -> INI -> config identically
 (the full sidebar.h:44-96 / settingsfilemanager.h:100-125 surface).
 """
 
@@ -69,16 +69,8 @@ def test_random_config_roundtrip(tmp_path, seed):
         compute_dtype=(cdt := str(rng.choice(["float32", "bfloat16"]))),
         matmul_precision=(prec := str(
             rng.choice(["default", "high", "highest"]))),
-        use_pallas_prep=flip(), fft_via_matmul=flip(),
+        fft_via_matmul=flip(),
         fold_backend=str(rng.choice(["pallas", "xla"])),
-        fused_scale=flip(), fold_concat=(concat := flip()),
-        # fast_log / fold_k_split are rejected alongside fold_concat and
-        # alongside f32 high/highest (the split kernels ignore them)
-        fold_k_split=1 if (concat or (cdt == "float32" and prec != "default"))
-        else int(rng.integers(1, 5)),
-        fast_log=False if (concat or (cdt == "float32" and prec != "default"))
-        else flip(),
-        pallas_tile=int(rng.choice([0, 128, 512])),
         output_dtype=str(rng.choice(["float32", "bfloat16"])),
     )
     curve_kw = dict(
@@ -152,7 +144,7 @@ def test_cli_settings_save_show_roundtrip(tmp_path, capsys):
                "--interpolation", "lanczos", "--window-type", "flattop",
                "--fpn", "continuous", "--grayscale-max", "72.5",
                "--disp-coeffs", "0", "0", "7.5", "-1.25",
-               "--compute-dtype", "bfloat16", "--fold-ksplit", "2"])
+               "--compute-dtype", "bfloat16", "--fold-backend", "xla"])
     assert rc == 0 and ini.exists()
     assert main(["settings", "show", str(ini)]) == 0
     shown = json.loads(capsys.readouterr().out)
@@ -160,7 +152,7 @@ def test_cli_settings_save_show_roundtrip(tmp_path, capsys):
     assert shown["processing"]["interpolation"] == "lanczos"
     assert shown["processing"]["fpn_mode"] == "continuous"
     assert shown["processing"]["grayscale_max"] == 72.5
-    assert shown["processing"]["fold_k_split"] == 2
+    assert shown["processing"]["fold_backend"] == "xla"
     assert shown["processing"]["compute_dtype"] == "bfloat16"
     assert shown["curves"]["window_type"] == "flattop"
     assert shown["curves"]["dispersion_coeffs"] == [0.0, 0.0, 7.5, -1.25]
@@ -169,7 +161,7 @@ def test_cli_settings_save_show_roundtrip(tmp_path, capsys):
 def test_cli_settings_drive_process_and_flags_override(tmp_path):
     """process runs entirely off a settings file (no geometry flags), and an
     explicit CLI flag overrides the file value even when the flag equals
-    another default (the ADVICE r2 semantics fix)."""
+    another default."""
     n, asc, bsc = 128, 8, 4
     k = np.arange(n)
     spec = 1000.0 + 400.0 * np.cos(2 * np.pi * 20 * k / n)
@@ -263,11 +255,19 @@ def test_settings_save_never_loads_the_base_custom_curve(tmp_path, capsys):
     assert saved["custom_resampling_filepath"] == str(tmp_path / "new.csv")
 
 
-def test_fold_concat_rejects_inert_knobs():
-    with pytest.raises(ValueError, match="concat"):
-        ProcConfig(fold_concat=True, fast_log=True)
-    with pytest.raises(ValueError, match="concat"):
-        ProcConfig(fold_concat=True, fold_k_split=2)
+def test_settings_with_removed_knobs_load(tmp_path):
+    """A settings file written before the kernel-tuning knobs went
+    (fold_concat, fold_k_split, fast_log, pallas_tile, fused_scale,
+    use_pallas_prep) still loads: those keys are ignored like any unknown
+    key, and the knobs that remain are read."""
+    ini = tmp_path / "old.ini"
+    ini.write_text("[tpu]\nfold_concat = 1\nfold_k_split = 4\nfast_log = 1\n"
+                   "pallas_tile = 512\nfused_scale = 0\nuse_pallas_prep = 1\n"
+                   "compute_dtype = bfloat16\nfold_backend = xla\n")
+    bundle = configmap.from_settings(SettingsManager(str(ini)))
+    assert bundle.cfg_kwargs == {"compute_dtype": "bfloat16",
+                                 "fold_backend": "xla"}
+    assert ProcConfig(**bundle.cfg_kwargs).compute_dtype == "bfloat16"
 
 
 def test_to_settings_accepts_partial_coefficient_tuples(tmp_path):

@@ -1,9 +1,9 @@
 """Sharded step vs single-device pipeline parity on an 8-device CPU mesh.
 
-The conftest forces JAX_PLATFORMS=cpu with
+The conftest defaults JAX_PLATFORMS=cpu with
 --xla_force_host_platform_device_count=8, so every mesh shape here runs with
 real SPMD partitioning (psum over segment statistics, boundary exchanges for
-the fast-axis ops) without TPU hardware.
+the fast-axis ops) without accelerator hardware.
 """
 
 import jax
@@ -168,7 +168,7 @@ def test_streaming_engine_with_sharded_model():
 
 
 @pytest.mark.parametrize("has_post", [False, True])
-def test_output_dtype_bf16_parity(rng, has_post):
+def test_output_dtype_bf16_parity(rng, has_post, kernel_interpret):
     """output_dtype='bfloat16' on the mesh: both lax.cond branches must
     agree on dtype (FPN ONCE + fused path crashed at trace time before),
     post-stage arithmetic stays float32, and the result matches the
@@ -177,9 +177,9 @@ def test_output_dtype_bf16_parity(rng, has_post):
 
     cfg = dataclasses.replace(
         FULL_CFG, output_dtype="bfloat16",
-        # the crash case: fused pallas fold + FPN ONCE puts the bf16 store
-        # decision inside a lax.cond whose branches must agree on dtype
-        fft_via_matmul=True, fold_backend="pallas",
+        # the crash case: the depth/scale kernel + FPN ONCE puts the bf16
+        # store decision inside a lax.cond whose branches must agree on dtype
+        fft_via_matmul=True, compute_dtype="bfloat16",
         background_removal=False,
         bscan_flip=has_post, sinusoidal_correction=has_post,
         post_background_removal=False)
@@ -221,7 +221,7 @@ def test_sharded_fpn_rejects_too_few_lines(rng):
 
 
 def test_packed12_wire_on_mesh_matches_uint16(rng):
-    """Packed-12 wire on a device mesh (VERDICT r4 weak #4): the wire
+    """Packed-12 wire on a device mesh: the wire
     buffer ships sharded on B-scan boundaries, unpacks shard-locally
     (ops.convert.unpack_uint12_rows), and the processed output is
     bit-identical to the uint16-container mesh path."""
